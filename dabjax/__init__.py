@@ -1,4 +1,5 @@
-"""dabjax — a TPU-native DAB/DAB+ software-radio framework (JAX/XLA/Pallas).
+"""dabjax — a DAB/DAB+ software-radio framework in JAX, whose accelerator is
+an NVIDIA H100 (XLA and one CUDA Viterbi kernel).
 
 Brand-new implementation with the capabilities of the reference receiver
 sdr-j-dab (AlbrechtL/sdr-j-dab): OFDM synchronization and demodulation,

@@ -4,7 +4,7 @@ Decode side covers the reference's embedded kjmp2 fixed-point decoder
 (``mp2processor.cpp:38-634``) re-designed as a float/matmul pipeline: bit
 parsing on the host, dequantization vectorized, and the polyphase synthesis
 filterbank expressed as a [64,32] matrixing matmul + windowed reduction —
-the exact shape that maps onto the TPU MXU when batched across frames.
+a shape that batches across frames as one matrix product.
 
 A minimal encoder (fixed allocation) is included for closed-loop golden
 fixtures — the reference has no encoder at all (SURVEY.md §4).

@@ -296,8 +296,11 @@ def cmd_scan(args) -> int:
 
 
 def main(argv=None) -> int:
+    from dabjax.runtime.environment import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser(
-        prog="dabjax", description="TPU-native DAB/DAB+ receiver")
+        prog="dabjax",
+        description="DAB/DAB+ receiver in JAX (accelerator: NVIDIA H100)")
     ap.add_argument("-M", "--mode", type=int, default=1,
                     help="DAB transmission mode (1/2/4)")
     ap.add_argument("-i", "--config", default=None,

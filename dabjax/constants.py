@@ -1,6 +1,6 @@
 """DAB transmission-mode constants (ETSI EN 300 401).
 
-TPU-native re-design of the mode parameter table of the reference receiver
+Re-design of the mode parameter table of the reference receiver
 (sdr-j-dab, ``gui.cpp:1328-1372``) and the global rate constants
 (``includes/dab-constants.h:79``).  Everything here is a *spec* constant,
 usable inside ``jax.jit`` traces as static Python values.

@@ -1,8 +1,7 @@
 """LUT-based fast atan2 — the ``compAtan`` utility's analog
 (``src/various/Xtan2.cpp``, unused by the reference's main path too).
 
-On TPU the VPU evaluates ``arctan2`` natively, so the production demod
-uses ``jnp.angle``; this table-quantized variant exists for capability
+The production demod uses ``jnp.angle``; this table-quantized variant exists for capability
 parity and for host-side code that wants the reference's exact
 quantization behavior (256-entry quarter table over ``y/x``).
 """

@@ -140,9 +140,9 @@ def check_crc16_bits(bits: np.ndarray, inverted: bool = True):
         return np.all(crc == stored, axis=-1)
     import jax.numpy as jnp
     mj = jnp.asarray(m, dtype=jnp.int32)
-    # int32 matmul; per-bit popcounts are <= n-16 (240 for FIBs), safely
-    # below 2^8 so the result is exact even if a backend routes integer
-    # dots through a bf16 MXU pass
+    # int32 matmul; per-bit popcounts are <= n-16 (240 for FIBs), so the
+    # result is exact even if a backend routed the dot through TF32 (a
+    # 10-bit mantissa holds integers below 2^11 exactly)
     crc = jnp.matmul(msg.astype(jnp.int32), mj) & 1
     crc = crc ^ jnp.asarray(init_crc, dtype=jnp.int32)
     if inverted:

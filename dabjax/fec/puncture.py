@@ -253,7 +253,7 @@ def _expand_matrix_tail() -> np.ndarray:
 
 
 def depuncture_profile(soft, lengths, pis):
-    """TPU-fast depuncture straight from a protection profile.
+    """Depuncture straight from a protection profile.
 
     Equivalent to ``depuncture(soft[..., :n_tx], puncture_mask(lengths,
     pis))`` but expressed as one tiny one-hot matmul per equal-PI run
@@ -265,18 +265,16 @@ def depuncture_profile(soft, lengths, pis):
     CONTRACT: callers must feed integer-valued soft bits with |x| <= 127
     (demod's rounded convention) — the DEFAULT-precision dot below is
     exact only under that range (see comment).  Scaled or unrounded
-    inputs would silently lose the bit-exact guarantee on TPU (CPU runs
-    full precision, so CI would not trip).  On-hardware spot check:
-    ``python tools/tpu_spot_checks.py depuncture`` (ADVICE r4).
+    inputs would silently lose the bit-exact guarantee on the GPU (the
+    CPU runs full precision, so CPU tests would not trip);
+    ``chip_smoke.py``'s golden gates run it on the card.
     """
     import jax
     import jax.numpy as jnp
-    # DEFAULT (single bf16 pass) is EXACT here: soft bits are integers
-    # with |x| <= 127 (demod's rounded convention) and the expansion
-    # matrix is 0/1, so every product is an integer below 2^8 — exactly
-    # representable in bf16 — and the MXU accumulates in f32.  Same
-    # integer-exactness argument as the Pallas Viterbi kernel
-    # (viterbi_pallas.py); 3x cheaper than the 3-pass HIGHEST split.
+    # DEFAULT precision (TF32 on the GPU) is EXACT here: soft bits are
+    # integers with |x| <= 127 (demod's rounded convention), which TF32's
+    # 10-bit mantissa holds exactly, the expansion matrix is 0/1, and each
+    # output receives exactly one product, accumulated in f32.
     dot = functools.partial(jnp.dot, preferred_element_type=jnp.float32)
     lead = soft.shape[:-1]
     parts = []

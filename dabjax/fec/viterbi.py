@@ -1,13 +1,13 @@
 """Batched Viterbi decoder for the DAB K=7, rate-1/4 convolutional code.
 
-TPU-first re-design of the reference's SPIRAL-generated SSE decoder
+Re-design of the reference's SPIRAL-generated SSE decoder
 (``viterbi.cpp:25-371``, ``spiral-sse.c``): instead of one codeword at a
-time through a hand-scheduled SIMD inner loop, we decode a *batch* of
-codewords in lockstep — the add-compare-select step becomes a
-``[batch, 128]`` vector op on the VPU and the per-step sequential chain is a
-``lax.scan``.  Throughput comes from batching (4 FIC codewords x frames x
-all 64 subchannels of a CIF), which the reference cannot do (it decodes one
-service; ``msc-handler.cpp:183-192``).
+time through a hand-scheduled SIMD inner loop, a *batch* of codewords is
+decoded at once (4 FIC codewords x frames x all subchannels of a CIF),
+which the reference cannot do (it decodes one service;
+``msc-handler.cpp:183-192``).  On the GPU that batch runs in the CUDA
+kernel of :mod:`dabjax.fec.viterbi_cuda`, one warp per codeword; on the
+CPU it is the ``lax.scan`` decoder below.
 
 Conventions (identical to the reference decode semantics):
 
@@ -92,13 +92,17 @@ def viterbi_decode_np(soft: np.ndarray, nbits: int) -> np.ndarray:
 
 
 def viterbi_decode(soft, nbits: int):
-    """Backend-dispatching decode: Pallas MXU kernel on TPU, lax.scan
-    elsewhere.  Identical results (both bit-exact vs viterbi_decode_np)."""
+    """Decode with the platform's decoder: the CUDA kernel on the GPU,
+    the ``lax.scan`` decoder on the CPU.  Both are bit-exact vs
+    :func:`viterbi_decode_np` on integer-valued soft bits."""
     import jax
-    if jax.default_backend() != "cpu":
-        from dabjax.fec.viterbi_pallas import viterbi_decode_pallas
-        return viterbi_decode_pallas(soft, nbits)
-    return viterbi_decode_jax(soft, nbits)
+    platform = jax.default_backend()
+    if platform == "gpu":
+        from dabjax.fec.viterbi_cuda import viterbi_decode_cuda
+        return viterbi_decode_cuda(soft, nbits)
+    if platform == "cpu":
+        return viterbi_decode_jax(soft, nbits)
+    raise NotImplementedError(f"no Viterbi decoder for platform {platform!r}")
 
 
 def viterbi_decode_jax(soft, nbits: int):
@@ -117,9 +121,9 @@ def viterbi_decode_jax(soft, nbits: int):
     lead = soft.shape[:-1]
     s = soft.reshape(lead + (T, 4)).astype(jnp.float32)
     # (T, ..., 128) branch scores — time leading for scan.
-    # HIGHEST: a default f32 einsum on TPU rounds through one bf16 pass,
-    # which would flip near-tie branch decisions (the Pallas kernel has
-    # its own exact formulation)
+    # HIGHEST: a default-precision f32 einsum may round its operands
+    # (TF32 on the GPU), which would flip near-tie branch decisions for
+    # soft bits that are not small integers
     bs = jnp.einsum("...tk,rk->t...r", s, jnp.asarray(signs, jnp.float32),
                     precision=jax.lax.Precision.HIGHEST)
 

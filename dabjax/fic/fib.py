@@ -4,7 +4,7 @@ Host-side control plane: parses CRC-passed FIBs into an ensemble database
 (subchannel organization, service -> component bindings, labels, user
 applications, time).  Semantics follow the reference's
 ``fib-processor.cpp`` (cited per handler); the representation is a plain
-Python dataclass DB that the TPU decode plane queries for *static* subchannel
+Python dataclass DB that the device decode plane queries for *static* subchannel
 geometry (start address / size / protection) used to build jit-compiled
 decode programs.
 """

@@ -67,6 +67,5 @@ def decode_fic(fic_soft: jnp.ndarray, p: DabParams
     bits = prbs.disperse(bits)                         # energy dispersal
     fibs = bits.reshape(F, n_cw * fibs_per_cw, 256)
     ok = check_crc16_bits(fibs, inverted=True)
-    # int32 rather than bool: device->host bool transfers are unimplemented
-    # on some experimental TPU runtimes, and int32 costs nothing here
+    # int32 rather than bool (ROADMAP Design 3 queues the plain bool)
     return fibs, ok.astype(jnp.int32)

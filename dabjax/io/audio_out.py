@@ -4,7 +4,7 @@ The reference renders PCM through PortAudio at a fixed 48 kHz stereo
 (``audiosink.cpp:129-138``), low-pass-resampling 16/24/32 kHz codec output
 with windowed-sinc FIR filters (``audiosink.cpp:71-73``,
 ``fir-filters.cpp:36-110``), and can dump audio to WAV via libsndfile.
-Here the sink surface is files/arrays (no sound card in a TPU pod): a WAV
+Here the sink surface is files/arrays (a headless receiver): a WAV
 writer, the same Blackman-windowed LowPassFIR, and a polyphase rational
 resampler to 48 kHz.
 """

@@ -3,7 +3,7 @@
 The reference's device zoo (dabstick/SDRplay/Airspy/UHD/rtl_tcp/ExtIO,
 ``src/input/*``) exists to fill a ring buffer with normalized complex
 floats; in this framework the device plane is a small Source protocol that
-yields numpy blocks which the runtime stages onto the TPU.  Implemented
+yields numpy blocks which the runtime stages onto the GPU.  Implemented
 here: the two file-replay sources that the reference also uses as its
 deterministic test backends (``rawfiles.cpp``, ``wavfiles.cpp``), a
 modulator-backed synthetic source, the null device, and an rtl_tcp network

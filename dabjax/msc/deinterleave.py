@@ -34,8 +34,8 @@ def time_deinterleave(subch_soft: jnp.ndarray) -> jnp.ndarray:
 
     out[t, i] = in[t + 15 - DELAYS[i mod 16], i]: bits sharing i mod 16
     share a delay, so the whole de-interleave is 16 *static time slices*
-    of the [..., T, n/16, 16] view stacked back together — far cheaper on
-    TPU than a 2-D gather.
+    of the [..., T, n/16, 16] view stacked back together, in place of a
+    2-D gather.
     """
     T, n = subch_soft.shape[-2:]
     x = subch_soft.reshape(subch_soft.shape[:-1] + (n // 16, 16))

@@ -1,6 +1,6 @@
 // Native IO plane: lock-free SPSC ring buffer + async IQ producers.
 //
-// TPU-native counterpart of the reference's device layer: every input in
+// Counterpart of the reference's device layer: every input in
 // sdr-j-dab fills a lock-free ring buffer from a callback thread
 // (includes/various/ringbuffer.h; src/input/dabstick-osmo/dabstick.cpp:65-83)
 // and the OFDM thread drains it.  Here the producer thread reads u8/f32 IQ

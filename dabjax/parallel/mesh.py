@@ -1,6 +1,6 @@
 """Device-mesh helpers for multi-chip scaling (SURVEY.md §2.5 mapping).
 
-The reference's parallelism is thread-pipelining on one CPU; the TPU-native
+The reference's parallelism is thread-pipelining on one CPU; here the
 axes are:
 
 * ``time``  — contiguous frame blocks sharded across chips (sequence

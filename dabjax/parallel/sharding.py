@@ -10,12 +10,13 @@ SPMD program over axes ('time', 'subch'):
   ``jax.lax.ppermute`` (the collective replacement for the reference's
   ring-buffer handoff, SURVEY.md §2.5)
 * subchannels are sharded along ``subch``; each rank Viterbi-decodes its
-  slice of services (vmap), so the whole CIF is decoded concurrently
+  slice of services in one batched kernel call, so the whole CIF is decoded concurrently
 * FIC CRC pass-rate is psum-reduced over the mesh as the step's scalar
   quality signal
 
 Shapes are uniform across ranks (subchannels bucketed to one geometry), so
-the program is a single SPMD computation XLA can lay onto ICI.
+the program is a single SPMD computation; XLA hands the collectives to
+NCCL.
 """
 
 from __future__ import annotations

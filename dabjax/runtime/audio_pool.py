@@ -1,22 +1,24 @@
 """Audio decode in worker PROCESSES — the config-5 GIL escape.
 
 The audio plane (MP2 bit parsing, AAC/SBR/PS Huffman front ends) is
-numpy-heavy Python: on worker *threads* it convoys on the GIL, and with
-8 concurrent channels x 3 services the thread pile-up made the channel
-bank slower than the sum of its parts (r4: 0.7x aggregate; r5 threads:
-1.18x).  This pool moves the per-service decoder state into a few
-spawned worker processes (2 on this host): the main process ships each
-block's bit-packed logical frames (~70 KB per service-block) over a
-pipe via a feeder thread, workers decode independently on real cores,
-and `drain()` collects the CRC-gated counters.
+numpy-heavy Python: on worker *threads* it convoys on the GIL, so with
+many concurrent channels x services the thread pile-up made the channel
+bank slower than the sum of its parts.  This pool moves the per-service
+decoder state into a few spawned worker processes: the main process
+ships each block's bit-packed logical frames (~70 KB per service-block)
+over a pipe via a feeder thread, workers decode independently on real
+cores, and `drain()` collects the CRC-gated counters.
 
 The reference's analog is its dedicated audio thread consuming the
 backend ring buffer (mp4processor.cpp:272-277 runs the codec chain on
 one thread); here the deployment shape is many channels per host, so
 decode state is keyed by (channel, subchannel) and sharded over workers.
 
-Workers import only numpy + the dabjax audio stack (no jax, no TPU
-client) — ``spawn`` start keeps them clean of the parent's device state.
+Workers decode on the host only.  They import ``dabjax.runtime.receiver``
+and so JAX, pinned to the CPU first (``JAX_PLATFORMS=cpu``): a stray
+device op in a worker must never open the card, where a second JAX
+process would reserve most of its memory.  ``spawn`` start keeps them
+clean of the parent's device state.
 PCM stays in the worker (counters and decode-time are returned): this
 path is for scan/monitor/bench workloads; interactive listening
 (CLI decode --play) uses the in-process thread path where the PCM sinks
@@ -25,6 +27,7 @@ live.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Dict, List, Tuple
@@ -46,6 +49,7 @@ class _Counters:
 
 
 def _worker_main(conn):
+    os.environ["JAX_PLATFORMS"] = "cpu"     # before JAX is imported
     services: Dict[Tuple, object] = {}
     from dabjax.runtime.receiver import AudioService
     while True:

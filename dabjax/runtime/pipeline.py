@@ -6,14 +6,12 @@ used by the runtime, the benchmark, and the multi-chip sharded step.
 
 from __future__ import annotations
 
-import functools
-from typing import List, Tuple
+from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dabjax.constants import DabParams, get_mode
+from dabjax.constants import DabParams
 from dabjax.fic.fic_decoder import decode_fic
 from dabjax.iq import pack_iq, unpack_iq
 from dabjax.msc.cif import cifs_from_soft
@@ -74,10 +72,9 @@ def pipeline_stages(p: DabParams, geoms: Tuple[SubchGeometry, ...]):
     strict prefix of the full pipeline and folds EVERY computed output into
     the scalar (unconsumed outputs get dead-code-eliminated — CLAUDE.md
     timing discipline).  Stage cost = difference of adjacent prefix times:
-    demod | fic | deint_depunct | viterbi_forward | traceback_dispersal.
+    demod | fic | deint_depunct | viterbi_dispersal.
     """
     from dabjax.fec import puncture
-    from dabjax.fec.viterbi_pallas import viterbi_forward_words
     from dabjax.msc.deinterleave import time_deinterleave
 
     starts = np.array([g.start_addr * 64 for g in geoms])
@@ -118,18 +115,6 @@ def pipeline_stages(p: DabParams, geoms: Tuple[SubchGeometry, ...]):
         soft = _front(rows)
         return jnp.sum(soft) + _fic(soft) + jnp.sum(_prep(soft))
 
-    interpret = jax.default_backend() == "cpu"   # pallas smoke-test path
-
-    def s_forward(rows):
-        soft = _front(rows)
-        full = _prep(soft)
-        dec = viterbi_forward_words(full, 24 * proto.bitrate,
-                                    interpret=interpret)
-        # dec[0,0] keeps the (opaque, non-DCE-able) pallas call alive
-        # without a full-plane reduction inflating the measurement
-        return (jnp.sum(soft) + _fic(soft) + jnp.sum(full)
-                + jnp.sum(dec[0, 0].astype(jnp.float32)))
-
     full_fn = full_ensemble_pipeline(p, geoms)
 
     def s_full(rows):
@@ -138,7 +123,7 @@ def pipeline_stages(p: DabParams, geoms: Tuple[SubchGeometry, ...]):
                 + jnp.sum(bits).astype(jnp.float32))
 
     return {"demod": s_demod, "fic": s_fic, "deint_depunct": s_prep,
-            "viterbi_forward": s_forward, "full": s_full}
+            "full": s_full}
 
 
 def example_rows(p: DabParams, n_frames: int = 2, seed: int = 0):

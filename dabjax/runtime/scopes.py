@@ -1,8 +1,8 @@
 """Terminal scope rendering: spectrum + IQ constellation as text.
 
 The reference draws these with Qwt widgets (``scopes-qwt6/scope.cpp``
-spectrum/waterfall, ``iqdisplay.cpp:34-100`` constellation scatter); a
-TPU-side receiver is headless, so the same taps — ``Metrics.spectrum``
+spectrum/waterfall, ``iqdisplay.cpp:34-100`` constellation scatter); this
+receiver is headless, so the same taps — ``Metrics.spectrum``
 (mean PRS magnitude, fftshifted) and ``Metrics.constellation`` (one data
 symbol's DQPSK points) — render as Unicode block graphics for
 ``dabjax info --scope`` / ``--watch``.

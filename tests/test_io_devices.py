@@ -169,7 +169,7 @@ def test_fec_frame_passthrough_without_fec_packets():
 
 # -------------------------------------------------------------- profiling
 
-def test_stage_profiler_report():
+def test_stage_profiler_report(tmp_path):
     prof = StageProfiler()
     with prof.stage("demod", items=196608):
         pass
@@ -178,8 +178,8 @@ def test_stage_profiler_report():
     assert "demod" in rep and "msc" in rep and "x RT" in rep
     d = prof.as_dict()
     assert d["msc"]["seconds"] == 0.5
-    with device_trace("/tmp/dabjax_trace_test"):
-        pass                                  # must never raise
+    with device_trace(str(tmp_path / "trace")):
+        pass                                  # the CPU profiler traces too
 
 
 # ------------------------------------------------------------- fast atan2
